@@ -88,8 +88,8 @@ def main():
     ap.add_argument("--radius", type=float, default=0.5)
     ap.add_argument("--H", type=float, default=0.01)
     ap.add_argument("--precond", default="pmg")
-    ap.add_argument("--apply-mode", default="pallas",
-                    help="pallas | fused | sumfact")
+    ap.add_argument("--apply-mode", default="fused",
+                    help="fused | sumfact")
     ap.add_argument("--cheb-degree", type=int, default=3)
     ap.add_argument("--rim-tol", type=float, default=1e-9,
                     help="|r-a| tolerance for rim-node extraction. The polar "
@@ -107,9 +107,9 @@ def main():
                          "diffracts the incident wave off the zone edge and "
                          "biases the shadow envelope up; 'incident' damps "
                          "only the scattered field (open-sea boundary)")
-    ap.add_argument("--chunk", type=int, default=25,
-                    help="steps per dispatched program (the device watchdog "
-                         "kills single programs running >~5 min)")
+    ap.add_argument("--chunk", type=int, default=0,
+                    help="steps per dispatched program, each chunk printing "
+                         "progress (0 = the whole run in one program)")
     ap.add_argument("--shard", type=int, default=0,
                     help="run the time loop through the n-device sharded "
                          "runner with the per-step record hook — the "
@@ -200,9 +200,9 @@ def main():
         from lpfem.shard import ShardedProblem, make_device_mesh
         sprob = ShardedProblem(prob, mesh=make_device_mesh(args.shard))
 
-    # Chunked execution: one multi-minute XLA program trips the device
-    # watchdog; ~50-step chunks keep each dispatch short and give progress.
-    chunk = args.chunk
+    # optional chunked execution: progress lines and state checks between
+    # dispatches of one cached executable
+    chunk = args.chunk or args.nsteps
     t0_wall = time.perf_counter()
     t, y, phi = 0.0, y0, phi0
     ts_all, etas_all = [], []

@@ -27,7 +27,7 @@ def run_case(mesh, order, wave, rtol_sq, max_iter, precond="pmg",
              dtype="float64", max_outer=8, inner_precision="highest"):
     """One stationary solve. ``dtype``:
     - float64: everything double (the MFEM configuration)
-    - float32: everything single (the raw TPU speed path)
+    - float32: everything single
     - mixed:   f32 operator + preconditioner, f64 outer residuals
                (iterative refinement; hits f64 floors at near-f32 speed —
                the 'matching MFEM accuracy on chip' configuration)
@@ -40,9 +40,9 @@ def run_case(mesh, order, wave, rtol_sq, max_iter, precond="pmg",
 
     sp = H1Space(mesh, order)
     jt = jnp.float32 if dtype == "float32" else jnp.float64
-    # mixed: exact-f32 MXU products in the inner operator — the TPU default
-    # rounds f32 matmul inputs to bf16, which capped the attainable inner
-    # correction (the p>=8 refinement floors of round 2)
+    # mixed: exact-f32 products in the inner operator's element paths — a
+    # default-precision f32 matmul may run in TF32 on the GPU, which caps
+    # the attainable inner correction
     op = LaplacePA(sp, dtype=jt if dtype != "mixed" else jnp.float32,
                    precision=inner_precision if dtype == "mixed" else None)
     surf = SurfaceSpace(sp, attr=2)
@@ -105,8 +105,8 @@ def main():
                          "solve's digits; high p needs more)")
     ap.add_argument("--inner-precision", default="highest",
                     choices=["default", "high", "highest"],
-                    help="mixed: MXU product precision of the f32 inner "
-                         "operator (TPU default = bf16 inputs)")
+                    help="mixed: matmul precision of the f32 inner "
+                         "operator (default = TF32 on the GPU)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 

@@ -28,7 +28,10 @@ def main():
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--rtol-sq", type=float, default=1e-8,
                     help="CG tolerance (1e-16 = the faithful ss.cpp "
-                         "protocol; selects the DS outer in dtype=mixed)")
+                         "protocol)")
+    ap.add_argument("--hi-apply", default="auto", choices=["auto", "ds", "f64"],
+                    help="outer arithmetic of dtype=mixed: native f64 "
+                         "(auto/f64) or double-single (ds)")
     args = ap.parse_args()
 
     import jax
@@ -40,14 +43,17 @@ def main():
 
     cfg = preset("scaling_base", order=args.order, ref_levels=args.refs,
                  precond=args.precond, cheb_degree=args.cheb_degree,
-                 dtype=args.dtype, cg_rtol_sq=args.rtol_sq, cg_max_iter=300)
+                 dtype=args.dtype, cg_rtol_sq=args.rtol_sq, cg_max_iter=300,
+                 hi_apply=args.hi_apply)
     prob = Problem(cfg)
     n = prob.space.n_dofs
     ns = prob.surf.n_dofs
     fso = prob.fso
     y0, phi0 = prob.initial_state()
+    dev = jax.devices()[0]
     print(f"dofs={n} order={args.order} refs={args.refs} "
-          f"precond={args.precond} backend={jax.devices()[0].platform}")
+          f"precond={args.precond} hi_apply={args.hi_apply} "
+          f"device={dev.platform}/{dev.device_kind} x{len(jax.devices())}")
 
     def timed(name, fn, *xs, iters=args.iters):
         f = jit_with_params(
@@ -68,14 +74,13 @@ def main():
     timed("constrained apply", lambda v: prob.op.constrained_apply(v, ess),
           x.astype(prob.op.dtype))
     if fso.op_hi is not None:
-        # mixed mode: the outer residual's f64 operator (XLA path; f64 is
-        # emulated on v5e — the faithful-protocol overhead lives here)
+        # mixed mode: the outer residual's f64 operator
         timed("f64 constrained apply",
               lambda v: fso.op_hi.constrained_apply(v, ess), x)
         timed("f64 axpy+dot", lambda v: v + jnp.vdot(v, v) * 1e-30 * v, x)
     if getattr(fso, "_ds_op", None) is not None:
-        # double-single outer (the round-5 faithful-protocol path): time
-        # the DS residual apply and the DS vector algebra it drives
+        # double-single outer (hi_apply="ds"): time the DS residual apply
+        # and the DS vector algebra it drives
         from lpfem.ds import DS, ds_add_f32, ds_sub
         x32 = x.astype(jnp.float32)
 

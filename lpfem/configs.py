@@ -33,21 +33,23 @@ class Config:
     # ---- discretization ----
     order: int = 2
     quad: int | None = None              # default order+1 GL points
-    apply_mode: str = "pallas"           # pallas | fused | sumfact | assembled
-                                         # (pallas auto-falls-back to fused
-                                         #  off-TPU or in f64; assembled runs
-                                         #  the CG solve on the ELL SpMV of
-                                         #  the fully assembled matrix, the
+    apply_mode: str = "fused"            # fused | sumfact | assembled
+                                         # (fused takes the separable
+                                         #  lattice form wherever the mesh
+                                         #  allows; assembled runs the CG
+                                         #  solve on the ELL SpMV of the
+                                         #  fully assembled matrix, the
                                          #  PF_linear_par configuration)
     dtype: str = "float64"
     mixed_inner_precision: str = "highest"
-                                         # MXU product precision of the f32
-                                         # inner operator when dtype="mixed":
-                                         # TPU's default f32 matmul rounds
-                                         # inputs to bf16, capping the inner
-                                         # correction accuracy (the p>=8
-                                         # refinement stall); highest = exact
-                                         # f32 products. default|high|highest
+                                         # matmul precision of the f32 inner
+                                         # operator's element paths when
+                                         # dtype="mixed": a default f32
+                                         # matmul may run in TF32 on the GPU
+                                         # (~3 digits per product), capping
+                                         # the inner correction accuracy;
+                                         # highest = exact f32 products.
+                                         # default (TF32) | high | highest
     # ---- wave ----
     H: float = 0.005
     g: float = 9.81
@@ -75,10 +77,9 @@ class Config:
                                          # stay well above the f32 floor
                                          # (~1e-10) — see solvers.pcg_ir
     hi_apply: str = "auto"               # dtype="mixed" outer arithmetic:
-                                         # auto = double-single (two-f32)
-                                         # when the lattice is separable,
-                                         # ds = require it, f64 = force the
-                                         # emulated-f64 outer (lpfem.ds)
+                                         # auto/f64 = native f64, ds =
+                                         # double-single two-f32 (lpfem.ds;
+                                         # separable lattices only)
     precond: str = "jacobi"              # jacobi | chebyshev | pmg
     cheb_degree: int = 3                 # smoother degree (chebyshev / pmg)
     h_coarsen_min_dofs: int = 20000      # pmg: h-coarsen below p=1 while the

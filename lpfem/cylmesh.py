@@ -65,7 +65,7 @@ def make_half_cylinder_tank(Lx: float = 12.0, Ly: float = 6.0,
 
     The mesh is geometrically curved but *logically* a deformed box, so it
     declares ``elem_lattice`` and rides the gather-free structured E-vector
-    transfer (no irregular gathers on TPU).
+    transfer (no irregular gathers).
     """
     c = np.array([cx, 0.0])
     # theta grid with the rectangle's upper-corner angles as exact grid

@@ -1,17 +1,16 @@
 """Double-single (two-float32) arithmetic: f64-class accuracy at f32 speed.
 
-Why this exists: v5e has no native f64 — XLA emulates it, and the emulation
-tax is wildly uneven: the banded-roll f64 apply is ~9x an f32 apply, but a
-single f64 axpy+dot at 2.18M dofs measured **14 ms** vs ~0.05 ms in f32
-(~300x; scripts/f64_apply_probe.py / experiments/solve_profile.py). The
-mixed-precision faithful-tolerance solve (``solvers.pcg_ir``) spends its
-outer loop entirely in such f64 vector ops and residual applies — the
-round-4 VERDICT's dominant cost.
+Why this exists: on hardware where f64 is emulated, the outer loop of the
+mixed-precision faithful-tolerance solve (``solvers.pcg_ir``) — f64 vector
+ops and residual applies — costs far more than the f32 inner solve. The
+GPU computes f64 natively, so ``hi_apply="auto"`` never picks this path;
+it stays reachable through ``hi_apply="ds"`` for comparison (PERF.md has
+its time against the native-f64 outer).
 
-The cure is to keep the high-precision state as an explicit pair of f32
+The scheme keeps the high-precision state as an explicit pair of f32
 arrays ``(hi, lo)`` with ``value = hi + lo`` and ``|lo| <= ulp(hi)/2``
-(~2^-48 relative, ~14.4 decimal digits), and run error-free transformations
-on the VPU at f32 speed:
+(~2^-48 relative, ~14.4 decimal digits), and runs error-free
+transformations in f32:
 
 - ``two_sum``      Knuth's branch-free exact add (6 flops)
 - ``split``        Veltkamp 12-bit split (f32: factor 2^12 + 1)
@@ -23,11 +22,11 @@ The residual arithmetic of iterative refinement needs exactly three vector
 operations in DS (everything else stays plain f32): ``r = b - A x``,
 ``x += e`` and a norm — see :func:`ds_sub`, :func:`ds_add_f32`,
 :func:`ds_dot_hi`. The banded Kronecker DS apply lives in
-:class:`SeparableDS` (XLA) and ``kernels/sep_apply_ds`` (Pallas).
+:class:`SeparableDS`.
 
 Accuracy contract (tested in ``tests/test_ds.py``): the DS separable apply
 matches the f64 assembled operator to <= 1e-13 relative — the bound the
-round-4 VERDICT prescribes — so ``pcg_ir`` converges to the same fixed
+mixed solve needs — so ``pcg_ir_ds`` converges to the same fixed
 point as the emulated-f64 outer it replaces
 (``Convergence_and_Scaling/ss.cpp:90-93`` tolerance semantics at f64
 fidelity).
@@ -75,14 +74,13 @@ def ds_to_f64(d: DS) -> jax.Array:
 def _opaque(a, b):
     """Hide a value pair from XLA's HLO rewriter (CSE / reassociation).
 
-    CAVEAT (measured, see ``kernels/sep_apply_ds.py`` docstring): on
-    XLA:**CPU** under jit this is NOT sufficient — the fusion pass
+    CAVEAT: on XLA:CPU under jit this is NOT sufficient — the fusion pass
     duplicates cheap multiplies into every consumer fusion straight
     through the barrier, and LLVM contracts the fused mul+add into an
     fma, demoting a jitted DS stream to plain-f32 accuracy. Eager CPU
-    execution (how the accuracy tests run) and XLA:TPU (how production
-    runs — the committed bench converges at rz0*1e-16 through this
-    path, impossible with a contracted stream) are exact."""
+    execution (how the accuracy tests run) is exact. XLA:GPU's LLVM
+    backend may contract the same way; PERF.md records whether the
+    ``hi_apply="ds"`` solve still converges on the card."""
     return jax.lax.optimization_barrier((a, b))
 
 
@@ -167,20 +165,12 @@ class SeparableDS:
     stream. Only the ``c.lo * u.lo`` cross term (~2^-48 relative) is
     dropped.
 
-    This XLA formulation is the portable reference (and the CPU test
-    anchor); the Pallas kernel ``kernels/sep_apply_ds`` is the TPU perf
-    path. Both replace the emulated-f64 outer operator of the mixed solve
-    (``lpfem/surface.py`` solve_laplace).
+    It replaces the f64 outer operator of the mixed solve when
+    ``hi_apply="ds"`` (``lpfem/surface.py`` solve_laplace).
     """
 
-    def __init__(self, sep, q: int | None = None,
-                 use_kernel: str = "auto"):
-        # sep: a SeparableLattice whose band arrays are f64. With ``q``
-        # (the operator's quadrature order) the Pallas DS kernel tables
-        # are built too and ``apply``/``constrained_apply_top`` dispatch
-        # to ``kernels.sep_apply_ds`` on TPU ("auto"); "xla" pins the
-        # portable form, "interpret" forces the kernel in interpret mode
-        # (the CPU test hook).
+    def __init__(self, sep):
+        # sep: a SeparableLattice whose band arrays are f64
         self.p = sep.p
         self.Dx, self.Dy, self.Dz = sep.Dx, sep.Dy, sep.Dz
         self.periodic = sep.periodic
@@ -190,56 +180,6 @@ class SeparableDS:
             hi = b64.astype(np.float32)
             lo = (b64 - hi.astype(np.float64)).astype(np.float32)
             self.bands[name] = DS(jnp.asarray(hi), jnp.asarray(lo))
-        self._kern = None
-        if q is not None and use_kernel != "xla":
-            self._init_kernel(sep, q, use_kernel)
-
-    def _init_kernel(self, sep, q: int, use_kernel: str) -> None:
-        import os
-
-        import jax as _jax
-
-        from .elements import basis_1d
-        from .kernels.lattice_apply import aligned_lanes
-        from .kernels.sep_apply_ds import (build_sep_tables_ds,
-                                           ds_vmem_estimate)
-        p = self.p
-        px = bool(self.periodic[0])
-        interpret = use_kernel == "interpret"
-        if os.environ.get("LPFEM_DS_KERNEL", "1") == "0":
-            return                      # escape hatch: pin the XLA form
-        if not interpret:
-            try:
-                if _jax.devices()[0].platform != "tpu":
-                    return
-            except Exception:
-                return
-        if sep.spacings is None:
-            return
-        nex = (self.Dx - (0 if px else 1)) // p
-        ney = (self.Dy - 1) // p
-        nez = (self.Dz - 1) // p
-        Dxp = self.Dx if px else aligned_lanes(self.Dx)
-        if px and not interpret and aligned_lanes(self.Dx) != self.Dx:
-            return                      # periodic x needs unpadded lanes
-        if not interpret and \
-                ds_vmem_estimate(p, self.Dy, Dxp) > 100 * 1024 * 1024:
-            return                      # live set past VMEM; keep XLA
-        cx, cy, ztab = build_sep_tables_ds(sep, basis_1d(p, q), Dxp)
-        self._kcx = jnp.asarray(cx)
-        self._kcy = jnp.asarray(cy)
-        self._kzt = jnp.asarray(ztab)
-        self._kern = dict(dims=(nex, ney, nez), periodic=(px, False),
-                          interpret=interpret)
-
-    def _kernel_apply(self, x: DS, ess_top: bool) -> DS:
-        from .kernels.sep_apply_ds import lattice_sep_apply_ds
-        k = self._kern
-        yh, yl = lattice_sep_apply_ds(
-            x.hi, x.lo, self._kcx, self._kcy, self._kzt, p=self.p,
-            dims=k["dims"], periodic=k["periodic"], ess_top=ess_top,
-            interpret=k["interpret"])
-        return DS(yh, yl)
 
     def register_params(self, bp) -> None:
         # band tables are [2p+1, D] — small, but register the big ones
@@ -247,8 +187,6 @@ class SeparableDS:
             setattr(self, f"_band_{name}_hi", d.hi)
             setattr(self, f"_band_{name}_lo", d.lo)
             bp.register(self, f"_band_{name}_hi", f"_band_{name}_lo")
-        if self._kern is not None:
-            bp.register(self, "_kcx", "_kcy", "_kzt")
 
     def _band(self, name: str) -> DS:
         # read through the (possibly params-threaded) attributes
@@ -312,8 +250,6 @@ class SeparableDS:
                             self._axis(b, self._band("Kz"), 0))
 
     def apply(self, x: DS) -> DS:
-        if self._kern is not None:
-            return self._kernel_apply(x, ess_top=False)
         sh = (self.Dz, self.Dy, self.Dx)
         u = DS(x.hi.reshape(sh), x.lo.reshape(sh))
         y = self.apply3(u)
@@ -322,8 +258,6 @@ class SeparableDS:
     def constrained_apply_top(self, x: DS) -> DS:
         """Identity rows/cols on the top z-plane (free-surface essential
         set), the DS twin of ``SeparableLattice.constrained_apply_top``."""
-        if self._kern is not None:
-            return self._kernel_apply(x, ess_top=True)
         sh = (self.Dz, self.Dy, self.Dx)
         uh = x.hi.reshape(sh)
         ul = x.lo.reshape(sh)

@@ -1,6 +1,6 @@
 """High-order H1 Lagrange (spectral) elements on tensor-product cells.
 
-TPU-native replacement for MFEM's ``H1_FECollection`` (reference:
+Replacement for MFEM's ``H1_FECollection`` (reference:
 ``Solvers/laplace_solver_parallel_partial.cpp:95`` uses p up to 10) and the 1D
 basis machinery behind MFEM's sum-factorized partial assembly
 (``AssemblyLevel::PARTIAL``, ``Solvers/PF_linear_par_partial.cpp:118-121``).

@@ -1,6 +1,6 @@
 """GLVis socket streaming.
 
-TPU-native counterpart of the reference's live visualization
+Counterpart of the reference's live visualization
 (``Solvers/PF_linear_serial.cpp:438-487``): MFEM opens a ``socketstream`` to
 a running ``glvis`` server (default ``localhost:19916``) and streams
 ``"solution\\n" << mesh << gridfunction`` once per visualization step, plus a

@@ -1,6 +1,6 @@
 """I/O: ParaView (VTU/PVD) output, experiment data files, checkpoints.
 
-TPU-native replacement for the reference's side channels:
+Replacement for the reference's side channels:
 - ``ParaViewDataCollection`` with high-order output
   (``Solvers/PF_linear_par.cpp:433-449``): here a host-side VTU writer that
   subdivides each element into p^3 (surface: p^2) linear sub-cells on the

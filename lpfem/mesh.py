@@ -1,6 +1,6 @@
 """Host-side hexahedral mesh layer (NumPy).
 
-TPU-native replacement for the MFEM mesh features the reference uses:
+Replacement for the MFEM mesh features the reference uses:
 ``Mesh::MakeCartesian3D`` + ``Mesh::MakePeriodic`` with
 ``CreatePeriodicVertexMapping`` (``Meshes/wave_tank.cpp:17-21``), boundary
 attribute marking by face-center coordinates (``Meshes/wave_tank.cpp:30-47``),
@@ -8,7 +8,7 @@ attribute marking by face-center coordinates (``Meshes/wave_tank.cpp:30-47``),
 section periodic meshes carry (``Meshes/wave-tank.mesh``), and Gmsh v2.2
 import (``Solvers/cylinder-diffraction.cpp:225``).
 
-Design notes (TPU-first): the mesh is pure host data. Geometry's source of
+Design notes: the mesh is pure host data. Geometry's source of
 truth is ``corner_coords [n_elem, 8, 3]`` (per-element, *unwrapped* — this is
 what makes periodic meshes work, mirroring MFEM's switch to L2 nodal geometry
 after ``MakePeriodic``). Topology is ``elems [n_elem, 8]`` with identified

@@ -1,13 +1,17 @@
 """p-multigrid preconditioner with Chebyshev-Jacobi smoothing.
 
-TPU-native replacement for the reference's strong preconditioner,
+Replacement for the reference's strong preconditioner,
 ``HypreBoomerAMG`` + CG (``Solvers/laplace_solver_parallel.cpp:134-146``).
-Algebraic multigrid is host-sequential and pointer-chasing — the opposite of
-what a TPU wants. The TPU-first equivalent for spectral elements is
+Algebraic multigrid setup is host-sequential and pointer-chasing. The
+equivalent for spectral elements that stays on the device is
 **p-coarsening**: the same mesh discretized at decreasing order
 (p -> p/2 -> ... -> 1), embedded-interpolation transfers, Chebyshev(degree-k)
-Jacobi smoothing on every level (pure operator applies — all MXU/VPU work),
-and a dense Cholesky (or Chebyshev) coarse solve. Iteration counts stay
+Jacobi smoothing on every level (pure operator applies), and a dense
+inverse (or Chebyshev) coarse solve.
+
+Every f32 contraction here states ``Precision.HIGHEST``: on the GPU a
+default-precision f32 matmul may run in TF32, and the transfers and the
+dense coarse solve are part of the preconditioner the inner CG trusts. Iteration counts stay
 O(1) in both h and p, matching BoomerAMG-CG's role at the 10M-DOF scale
 (SURVEY.md §7 step 7).
 
@@ -28,6 +32,8 @@ from .operators import LaplacePA
 from .space import H1Space
 
 __all__ = ["ChebyshevSmoother", "PMultigrid", "estimate_lmax"]
+
+_HI = jax.lax.Precision.HIGHEST
 
 
 def estimate_lmax(apply_fn, inv_diag, n: int, iters: int = 20,
@@ -127,9 +133,8 @@ class _Transfer:
     - **Lattice fast path** (``P1s`` set): on structured-lattice dof
       numbering the grid-level prolongation is the tensor product
       ``Pz x Py x Px`` of banded 1D matrices, applied as three dense
-      per-axis contractions — pure MXU work with full-width lanes, no
-      E-vector round-trips (the compact [ne, L] gather/assemble tiles
-      badly on TPU; measured ~10 ms per V-cycle at 17M dofs).
+      per-axis contractions over the whole lattice, with no E-vector
+      round-trips through the compact [ne, L] gather/assemble.
     - **Element path** (fallback): ``via`` supplies the fine-side
       gather/assemble and nodal multiplicity. For p-coarsening on one
       mesh, ``via`` is the fine level itself. For h-coarsening below p=1
@@ -160,24 +165,24 @@ class _Transfer:
     def prolong(self, coarse: "_Level", fine: "_Level", xc):
         if self.P1x is not None:
             v = xc.reshape(self.coarse_shape)
-            v = jnp.einsum("ZC,Cyx->Zyx", self.P1z, v)
-            v = jnp.einsum("YC,zCx->zYx", self.P1y, v)
-            v = jnp.einsum("XC,zyC->zyX", self.P1x, v)
+            v = jnp.einsum("ZC,Cyx->Zyx", self.P1z, v, precision=_HI)
+            v = jnp.einsum("YC,zCx->zYx", self.P1y, v, precision=_HI)
+            v = jnp.einsum("XC,zyC->zyX", self.P1x, v, precision=_HI)
             return v.reshape(-1) * fine.free
         uc = coarse.op.gather_E(xc)
-        uf = jnp.einsum("fc,ec->ef", self.I3, uc)
+        uf = jnp.einsum("fc,ec->ef", self.I3, uc, precision=_HI)
         xf = self.via_assemble(uf) * self.via_inv_mult
         return xf * fine.free
 
     def restrict(self, coarse: "_Level", fine: "_Level", rf):
         if self.P1x is not None:
             v = rf.reshape(self.fine_shape)
-            v = jnp.einsum("ZC,Zyx->Cyx", self.P1z, v)
-            v = jnp.einsum("YC,zYx->zCx", self.P1y, v)
-            v = jnp.einsum("XC,zyX->zyC", self.P1x, v)
+            v = jnp.einsum("ZC,Zyx->Cyx", self.P1z, v, precision=_HI)
+            v = jnp.einsum("YC,zYx->zCx", self.P1y, v, precision=_HI)
+            v = jnp.einsum("XC,zyX->zyC", self.P1x, v, precision=_HI)
             return v.reshape(-1) * coarse.free
         uf = self.via_gather(rf * self.via_inv_mult)
-        uc = jnp.einsum("fc,ef->ec", self.I3, uf)
+        uc = jnp.einsum("fc,ef->ec", self.I3, uf, precision=_HI)
         rc = coarse.op.assemble(uc)
         return rc * coarse.free
 
@@ -383,7 +388,8 @@ class PMultigrid:
             A[ess, ess] = 1.0
             # factor once on host (f64 for stability), apply on device
             self._coarse_inv = jnp.asarray(np.linalg.inv(A), dtype=fine_op.dtype)
-            self.coarse_solve = lambda r: self._coarse_inv @ r
+            self.coarse_solve = lambda r: jnp.dot(self._coarse_inv, r,
+                                                  precision=_HI)
         else:
             bp = BigParams()
             cl.register_params(bp)

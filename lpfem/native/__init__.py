@@ -1,7 +1,7 @@
 """Native (C++) host-runtime kernels with ctypes bindings.
 
 The reference's host-side machinery is C++ (MFEM); here the numerics run in
-JAX/XLA on TPU, and the host runtime pieces that benefit from native speed —
+JAX/XLA on the accelerator, and the host runtime pieces that benefit from native speed —
 topological dof numbering, mesh refinement — are C++ with a NumPy fallback.
 
 The shared library is built on demand with ``g++`` (cached next to the

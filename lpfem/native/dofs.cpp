@@ -1,6 +1,6 @@
 // Native topological H1 dof numbering for hex meshes.
 //
-// C++ runtime component of the lpfem TPU framework: the host-side
+// C++ runtime component of the lpfem framework: the host-side
 // "graph builder" that replaces MFEM's FiniteElementSpace dof-table
 // construction (reference: H1_FECollection/ParFiniteElementSpace,
 // Solvers/PF_linear_par_partial.cpp:276-285). Semantics are identical to

@@ -1,6 +1,6 @@
 """Jitted Krylov solvers + preconditioners.
 
-TPU-native replacement for MFEM's ``CGSolver``/``PCG`` and the
+JAX replacement for MFEM's ``CGSolver``/``PCG`` and the
 preconditioners the reference pairs with them: ``GSSmoother``+PCG (serial,
 ``Solvers/laplace_solver.cpp:112-113``), ``OperatorJacobiSmoother``+CG
 (partial assembly, ``Solvers/PF_linear_par_partial.cpp:124,157-164``), and
@@ -16,8 +16,8 @@ reference's ``PCG(..., 1e-24, 0.0)`` calls, or ``rel_tol**2`` for
 
 The entire CG loop is a ``lax.while_loop`` — one XLA computation per solve,
 no host round-trips per iteration (the MPI version pays an Allreduce per dot
-product; here the dots stay on-chip, and in the sharded version they are
-``psum`` over ICI inside the same program).
+product; here the dots stay on the device, and in the sharded version they
+are a ``psum`` across the device mesh inside the same program).
 """
 
 from __future__ import annotations
@@ -164,13 +164,11 @@ def pcg_ir_ds(apply_ds: Callable, apply_lo: Callable, b_ds, x0_ds,
     """Double-single (two-f32) twin of :func:`pcg_ir` — iterative refinement
     with the ENTIRE outer loop in DS arithmetic, no f64 anywhere.
 
-    Why: on v5e the emulated-f64 outer is wildly expensive — not just the
-    residual applies (~9x an f32 apply) but the *vector* work: one f64
-    axpy+dot at 2.18M dofs measured 14 ms vs ~0.05 ms in f32
-    (``experiments/solve_profile.py``). Here ``b_ds``/``x0_ds`` are
-    :class:`~lpfem.ds.DS` pairs, ``apply_ds`` maps DS -> DS with <= 1e-13
-    relative error vs the true f64 operator (``lpfem.ds.SeparableDS`` /
-    the Pallas DS kernel), the residual/update algebra runs as error-free
+    Why: where f64 is emulated, the f64 outer — residual applies and the
+    vector work alike — costs far more than the f32 inner solve. Here
+    ``b_ds``/``x0_ds`` are :class:`~lpfem.ds.DS` pairs, ``apply_ds`` maps
+    DS -> DS with <= 1e-13 relative error vs the true f64 operator
+    (``lpfem.ds.SeparableDS``), the residual/update algebra runs as error-free
     f32 transformations, and the inner CG consumes ``r.hi`` (the residual's
     leading f32 digits — all iterative refinement ever needs of it).
 
@@ -218,10 +216,10 @@ def pcg_refined(apply_hi: Callable, apply_lo: Callable, b: jax.Array,
                 dot_fn: Callable = _default_dot) -> CGResult:
     """Mixed-precision CG via iterative refinement (defect correction).
 
-    The TPU answer to MFEM's double-precision CG tolerances
+    Reaches MFEM's double-precision CG tolerances
     (rel 1e-12 / 1e-24 on r.z, ``Solvers/PF_linear_par_partial.cpp:157-164``):
     single-precision CG stalls near sqrt(N)*eps_f32 ~ 1e-6 relative, while
-    full f64 forfeits the MXU. Here the hot work — the inner CG solve of the
+    full f64 moves twice the bytes per apply. Here the hot work — the inner CG solve of the
     error equation ``A e = r`` — runs entirely in f32 (``apply_lo``,
     ``precond_lo``), and only the outer residual ``r = b - A x`` is computed
     in f64 (``apply_hi``, a handful of applies total). Each outer pass gains

@@ -1,6 +1,6 @@
 """H1 finite-element spaces: global dof numbering, boundary dofs, surface trace.
 
-TPU-native replacement for MFEM's ``(Par)FiniteElementSpace`` +
+Replacement for MFEM's ``(Par)FiniteElementSpace`` +
 ``GetEssentialTrueDofs`` + ``SubMesh::CreateFromBoundary``/``Transfer``
 (reference: ``Solvers/PF_linear_par_partial.cpp:276-285``,
 ``Solvers/PF_linear_serial.cpp:287-294``).
@@ -233,7 +233,7 @@ class StructuredInfo:
     GLL lattice and elements are ordered ``ex + nex*(ey + ney*ez)``. The
     matrix-free apply then performs E-vector gather/scatter as pure
     reshape/strided-slice 'unfold/fold' ops — no irregular gathers, the
-    dominant cost on TPU (SURVEY.md §7 'hard parts': unstructured
+    dominant cost of an unstructured apply (SURVEY.md §7 'hard parts': unstructured
     gather/scatter)."""
     dof_dims: tuple      # (Dx, Dy, Dz)
     elem_dims: tuple     # (nex, ney, nez)
@@ -620,7 +620,7 @@ class H1Space:
 class SurfaceSpace:
     """Trace space on boundary faces with a given attribute.
 
-    The TPU-native form of MFEM's ``SubMesh::CreateFromBoundary`` +
+    The counterpart of MFEM's ``SubMesh::CreateFromBoundary`` +
     bidirectional ``SubMesh::Transfer`` (``Solvers/PF_linear_serial.cpp:290``):
     a standalone 2D H1 numbering over the boundary quads plus a single
     gather/scatter index map ``surf_to_vol``.

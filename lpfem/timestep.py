@@ -1,6 +1,6 @@
 """Explicit time integration: classic RK4 over the free-surface state.
 
-TPU-native replacement for MFEM's ``RK4Solver::Step`` (used everywhere,
+Replacement for MFEM's ``RK4Solver::Step`` (used everywhere,
 e.g. ``Solvers/PF_linear_serial.cpp:339,491``): four RHS evaluations per
 step with stage times (t, t+dt/2, t+dt/2, t+dt) and the standard
 ``y += dt/6 (k1 + 2 k2 + 2 k3 + k4)`` update.

@@ -27,6 +27,6 @@ def test_entry_jits():
 def test_dryrun_multichip_with_live_backend():
     # conftest already initialized an 8-device CPU backend in this process,
     # so this exercises the subprocess re-exec path — the exact situation
-    # in which the round-1 driver call failed (MULTICHIP_r01 ok=false).
+    # in which an early multi-device driver call failed.
     assert g._jax_backend_live()
     g.dryrun_multichip(4)

@@ -1,10 +1,6 @@
-"""Fused structured-lattice Pallas apply: parity with the general paths.
-
-The kernel only engages on a real TPU (pallas mode, f32); these tests run
-it through the Pallas interpreter on the CPU backend against the f64
-XLA-fused reference — same contract the on-chip path satisfies (verified
-to 2e-8 relative at 283k/2.2M/17.1M dofs on the v5e chip).
-"""
+"""Separable-lattice apply in f32 (the inner operator of the mixed solve):
+parity with the f64 element-local reference, and the element-path fallback
+on curved lattices."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,42 +13,19 @@ from lpfem.space import H1Space
 
 @pytest.mark.parametrize("mk,args,p", [
     (make_wave_tank, (6, 2, 3), 4),          # periodic x
-    (make_wave_tank_finite, (5, 2, 2), 3),   # non-periodic (pad path)
-    (make_wave_tank, (4, 2, 2), 2),          # smallest supported order
-])
-def test_fused_lattice_matches_reference(mk, args, p):
-    mesh = mk(*args)
-    sp = H1Space(mesh, p)
-    op64 = LaplacePA(sp, dtype=jnp.float64, mode="fused")
-    x = jnp.asarray(np.random.default_rng(1).standard_normal(sp.n_dofs))
-    y_ref = op64.apply(x)
-
-    op32 = LaplacePA(sp, dtype=jnp.float32, mode="fused")
-    op32._init_fused_lattice(force=True)   # interpret-mode pallas
-    assert op32.C6r is not None, "fused lattice kernel did not engage"
-    op32.sepk = None                       # pin the ELEMENT kernel path
-    y_k = op32.apply(jnp.asarray(x, dtype=jnp.float32))
-    scale = float(jnp.max(jnp.abs(y_ref)))
-    dev = float(jnp.max(jnp.abs(y_k.astype(jnp.float64) - y_ref))) / scale
-    assert dev < 1e-5, dev
-
-
-@pytest.mark.parametrize("mk,args,p", [
-    (make_wave_tank, (6, 2, 3), 4),          # periodic x (unpadded lanes)
-    (make_wave_tank_finite, (5, 2, 2), 3),   # non-periodic (pad path)
+    (make_wave_tank_finite, (5, 2, 2), 3),   # non-periodic x
     (make_wave_tank, (4, 2, 2), 1),          # p=1 (the MG h-levels)
 ])
 def test_sep_kernel_matches_reference(mk, args, p):
-    """Banded Kronecker kernel (kernels/sep_apply) == f64 reference,
+    """f32 banded Kronecker apply == f64 element-local reference,
     unconstrained and with the fused top-plane Dirichlet constraint."""
     mesh = mk(*args)
     sp = H1Space(mesh, p)
-    op64 = LaplacePA(sp, dtype=jnp.float64, mode="fused")
+    op64 = LaplacePA(sp, dtype=jnp.float64, mode="sumfact")
     x = jnp.asarray(np.random.default_rng(2).standard_normal(sp.n_dofs))
 
-    op32 = LaplacePA(sp, dtype=jnp.float32, mode="fused")
-    op32._init_fused_lattice(force=True)   # interpret-mode pallas
-    assert op32.sepk is not None, "sep kernel did not engage"
+    op32 = LaplacePA(sp, dtype=jnp.float32)
+    assert op32.sep is not None, "separable form did not engage"
     x32 = jnp.asarray(x, dtype=jnp.float32)
 
     y_ref = op64.apply(x)
@@ -72,43 +45,17 @@ def test_sep_kernel_matches_reference(mk, args, p):
 
 
 def test_fused_lattice_falls_back_on_curved_mesh():
+    """A curved (polar-block) lattice has neither the compact affine metric
+    nor the separable form: the apply takes the fused element einsums on
+    the structured lattice and still matches the sum-factorized path."""
     from lpfem.cylmesh import make_half_cylinder_tank
     cyl = make_half_cylinder_tank(n_theta=8, n_r=4, nz=1)
     sp = H1Space(cyl, 2)
     op = LaplacePA(sp, dtype=jnp.float32, mode="fused")
-    op._init_fused_lattice(force=True)
-    assert op.C6 is None and op.C6r is None   # curved: no affine compaction
-
-
-@pytest.mark.parametrize("p", [2, 4])
-def test_sep_kernel_y_mxu_variant_matches(p):
-    """The MXU y-contraction variant (dense [Dy,Dy] matmuls instead of
-    sublane shifts) must be numerically interchangeable with the VPU band
-    form — both exact-f32 products."""
-    mesh = make_wave_tank(4, 3, 3)
-    sp = H1Space(mesh, p)
-    op64 = LaplacePA(sp, dtype=jnp.float64, mode="fused")
-    x = jnp.asarray(np.random.default_rng(5).standard_normal(sp.n_dofs))
-    x32 = x.astype(jnp.float32)
-
-    op32 = LaplacePA(sp, dtype=jnp.float32, mode="fused")
-    op32._init_fused_lattice(force=True)
-    assert op32.sepk is not None
-    y_vpu = np.asarray(op32.apply(x32))
-    op32.sep_y_mxu = True
-    y_mxu = np.asarray(op32.apply(x32))
-    scale = float(np.max(np.abs(y_vpu)))
-    assert np.max(np.abs(y_mxu - y_vpu)) < 1e-5 * scale
-    y_ref = np.asarray(op64.apply(x))
-    assert np.max(np.abs(y_mxu - y_ref)) / np.max(np.abs(y_ref)) < 1e-5
-
-    # constrained (fused top-plane Dirichlet) path too
-    from lpfem.space import SurfaceSpace
-    s2v = SurfaceSpace(sp, attr=2).surf_to_vol
-    assert op32.enable_top_plane_ess(s2v)
-    yc = np.asarray(op32.constrained_apply(
-        x32, jnp.asarray(s2v.astype(np.int32))))
-    ess64 = jnp.asarray(s2v)
-    yc_ref = np.asarray(
-        op64.apply(x.at[ess64].set(0.0)).at[ess64].set(x[ess64]))
-    assert np.max(np.abs(yc - yc_ref)) / scale < 1e-5
+    assert op.C6 is None and op.sep is None   # curved: no affine compaction
+    assert op.lattice is not None
+    ref = LaplacePA(sp, dtype=jnp.float64, mode="sumfact")
+    x = jnp.asarray(np.random.default_rng(4).standard_normal(sp.n_dofs))
+    y_ref = np.asarray(ref.apply(x))
+    y = np.asarray(op.apply(x.astype(jnp.float32)))
+    assert np.max(np.abs(y - y_ref)) < 1e-5 * np.max(np.abs(y_ref))

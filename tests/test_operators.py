@@ -223,7 +223,7 @@ def test_separable_constrained_and_fallback():
     ysep = np.asarray(op.constrained_apply(x, ess))
     assert np.allclose(ysep, yref, atol=1e-11 * np.max(np.abs(yref)))
 
-    # curved lattice (polar block) must fall back to the element kernel
+    # curved lattice (polar block) must fall back to the element path
     mc = make_half_cylinder_tank(Lx=4.0, Ly=2.0, cx=2.0, nz=2, n_theta=8,
                                  n_r=4, a=0.5)
     assert LaplacePA(H1Space(mc, 2)).sep is None
@@ -231,8 +231,8 @@ def test_separable_constrained_and_fallback():
 
 def test_separable_graded_grid():
     """Graded (nonuniform per-axis) tensor grids stay separable: Kronecker
-    apply, top-plane trace, and the interpret-mode sep kernel all match the
-    element-local reference."""
+    apply (f64 and f32) and the top-plane trace all match the element-local
+    reference."""
     from lpfem.space import SurfaceSpace
 
     zs = np.array([0.0, 0.35, 0.6, 0.8, 0.95, 1.0])   # packed to the top
@@ -255,7 +255,6 @@ def test_separable_graded_grid():
     assert np.allclose(np.asarray(zd.top_trace(x)), full, atol=1e-12)
 
     op32 = LaplacePA(sp, dtype=jnp.float32)
-    op32._init_fused_lattice(force=True)
-    assert op32.sepk is not None
+    assert op32.sep is not None
     yk = np.asarray(op32.apply(jnp.asarray(x, dtype=jnp.float32)))
     assert np.max(np.abs(yk - yb)) < 1e-5 * scale

@@ -128,7 +128,7 @@ def test_pmg_h_coarsening_below_p1():
 
 
 def test_lattice_transfer_fast_path_equivalence():
-    """The dense per-axis grid transfers (MXU fast path) must compute the
+    """The dense per-axis grid transfers (lattice fast path) must compute the
     exact same operator as the element-path gather/interp/assemble, for
     p-transfers AND the h-transfer below p=1 (periodic x included)."""
     import jax.numpy as jnp
